@@ -1,6 +1,7 @@
-// Native data-loading kernels for rrt_tpu (the TPU-native counterpart of
-// the reference's C++ scene-build chain: collada.cpp float parsing +
-// bvh.cpp construction). Exposed to Python via ctypes (tools/build_native.sh).
+// Native data-loading kernels for rrt_tpu (the counterpart of the
+// reference's C++ scene-build chain: collada.cpp float parsing + bvh.cpp
+// construction). Exposed to Python via ctypes (rrt_tpu/utils/native.py,
+// which builds this file on first use).
 //
 // The hot host-side costs when loading big .dae scenes are (a) parsing
 // megabyte float/int text arrays and (b) Morton-sorting triangles for the

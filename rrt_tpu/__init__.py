@@ -1,4 +1,4 @@
-"""rrt_tpu — a TPU-native differentiable relativistic path tracer.
+"""rrt_tpu — a differentiable relativistic path tracer in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 yvbbrjdr/relativistic-ray-tracer (a CPU C++ path tracer with Schwarzschild
@@ -6,7 +6,7 @@ ray bending): COLLADA scene loading, BVH-accelerated intersection, multi-BSDF
 global illumination, area/point/directional/environment lights, adaptive
 sampling, thin-lens depth of field, and geodesic ray marching around black
 holes — reformulated as a wavefront renderer over flat ray batches, sharded
-across TPU meshes, and differentiable w.r.t. scene and metric parameters.
+across device meshes, and differentiable w.r.t. scene and metric parameters.
 
 Layer map (≈ reference layers, see SURVEY.md §1):
   utils/      L0  math helpers, config, PRNG, timers
@@ -16,7 +16,7 @@ Layer map (≈ reference layers, see SURVEY.md §1):
   physics/    L7  geodesic integrators (Schwarzschild / Kerr / flat)
   render/     L6,L8 BSDFs, lights sampling, wavefront integrator, film
   parallel/   —   device mesh sharding (replaces the pthread tile pool)
-  ops/        —   Pallas TPU kernels for the hot paths
+  ops/        —   the fused trace kernel (Pallas through Triton, CUDA GPUs)
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,6 @@
 """Curved-space trace: geodesic micro-ray marching fused with closest-hit.
 
-This is the TPU reformulation of the architectural hook at
+This is the batched reformulation of the architectural hook at
 `bvh.cpp:103-113`: every ray (camera / bounce / shadow) is marched as up to
 ⌈2π/Δθ⌉ chord segments; per segment the reference (1) advances the geodesic,
 (2) kills the path on event-horizon absorption, (3) runs a full BVH
@@ -16,12 +16,13 @@ Reference semantics faithfully kept:
     (part1_code.cpp:106-107) — callers use `rays.d`, not the bent
     direction.
 
-TPU design: instead of the reference's per-ray early exit, segments are
-processed in groups of `seg_group`; each group folds its segments into the
-ray batch axis so one chunked primitive pass serves group·N rays (dense,
-fusion-friendly), and a `lax.while_loop` over groups exits early once every
-lane has an event. Worst case equals the reference's 63 traversals; batches
-that resolve early skip whole groups.
+Three implementations share these semantics: the fused Triton kernel
+(ops/trace_kernel.py, the default on a GPU: per-ray early exit inside a
+block, no chord table in memory), the XLA march-once path
+(`trace_curved_marched`, any platform), and the segment-group fold
+(`trace_curved`, which folds `seg_group` segments into the batch axis and
+can run all groups under `lax.scan`; with `accel="brute"` it is the
+brute-force reference).
 """
 from __future__ import annotations
 
@@ -194,8 +195,7 @@ def _morton7(v):
 
 
 def _scene_bbox(scene: SceneData):
-    """Global bbox of triangles ∪ live spheres (the phase-1 chord-reach
-    bound, mirroring the fused kernel's use of it)."""
+    """Global bbox of triangles ∪ live spheres."""
     if scene.cluster_lo is not None:
         glo_t = jnp.min(scene.cluster_lo, axis=0)
         ghi_t = jnp.max(scene.cluster_hi, axis=0)
@@ -216,6 +216,30 @@ def _scene_bbox(scene: SceneData):
                     scene.sph_center + scene.sph_radius[:, None], -big)
     return (jnp.minimum(glo_t, jnp.min(slo, axis=0)),
             jnp.maximum(ghi_t, jnp.max(shi, axis=0)))
+
+
+def should_sort(n_lanes: int, n_clusters: int) -> bool:
+    """Lane-sort gate: the (octant, origin-Morton) sort pays only when
+    per-block culling has clusters to skip AND the batch amortizes the
+    argsort."""
+    return n_lanes >= 2048 and n_clusters >= 32
+
+
+def lane_order(scene: SceneData, o, d):
+    """Permutation grouping flat (n, 3) lanes by direction octant, then
+    origin Morton cell, or None where `should_sort` says it does not pay.
+    Both traversals (the XLA shortlist and the fused kernel) use it."""
+    if scene.cluster_lo is None or not should_sort(
+            o.shape[0], scene.cluster_lo.shape[0]):
+        return None
+    glo, ghi = _scene_bbox(scene)
+    ext = jnp.where(ghi > glo, ghi - glo, 1.0)
+    q = jnp.clip(((o - glo) / ext) * 127.0, 0.0, 127.0).astype(jnp.int32)
+    m = _morton7(q[:, 0]) << 2 | _morton7(q[:, 1]) << 1 | _morton7(q[:, 2])
+    octant = ((d[:, 0] < 0).astype(jnp.int32) * 4
+              + (d[:, 1] < 0).astype(jnp.int32) * 2
+              + (d[:, 2] < 0).astype(jnp.int32))
+    return jnp.argsort(octant * (1 << 21) + m)
 
 
 # chord storage per lane is n_seg·7 f32 ≈ 1.7 KB; one slab bounds the
@@ -283,12 +307,12 @@ def _trace_curved_marched_slab(
     return_seg: bool = False,
     return_stats: bool = False,
 ):
-    """Micro-ray marched closest hit, march-once formulation — the XLA
-    analog of the fused Pallas kernel's design (ops/trace_kernel.py).
+    """Micro-ray marched closest hit, march-once formulation (the XLA
+    path; ops/trace_kernel.py fuses the same semantics on a GPU).
 
     The grouped fold in `trace_curved` tests EVERY chord of every group
-    for every lane: a batch with escaped lanes (39% of CBbunny camera
-    rays) never early-exits and pays all ⌈2π/Δθ⌉ full traversals. Here:
+    for every lane: a batch with escaped lanes never early-exits and pays
+    all ⌈2π/Δθ⌉ full traversals. Here:
 
       phase A: one cheap `lax.scan` marches all chords and records only
         BOOLEAN facts per (segment, lane): event-horizon absorption,
@@ -308,39 +332,39 @@ def _trace_curved_marched_slab(
     shape = rays.o.shape[:-1]
     o = rays.o.reshape(-1, 3)
     d = rays.d.reshape(-1, 3)
-    n = o.shape[0]
+    n_real = o.shape[0]
     dt = o.dtype
     glo, ghi = _scene_bbox(scene)
+    # Pad the lanes to whole 128-lane tiles with lanes that die on their
+    # first step (origin at the hole's centre). Every real lane is then
+    # computed by the same vectorized code whatever the batch size, so its
+    # result does not depend on its batch (sharded == unsharded, bit for
+    # bit, also for chaotic wrapped lanes). Cut off on return.
+    pad = (-n_real) % 128
+    if pad:
+        o = jnp.concatenate(
+            [o, jnp.broadcast_to(jnp.asarray(bh.position, dt), (pad, 3))])
+        d = jnp.concatenate(
+            [d, jnp.broadcast_to(jnp.asarray([1.0, 0.0, 0.0], dt),
+                                 (pad, 3))])
+    n = o.shape[0]
 
-    # Sort lanes once per trace by (direction octant, origin Morton cell):
-    # the shortlist traversal culls per 128-lane tile, so packing
-    # like-direction like-origin rays together is what makes bounce/shadow
-    # (incoherent) batches cull like camera batches. Lanes also RESOLVE in
-    # sorted-neighbor groups, so late segments leave whole chunks dead for
-    # the chunk-level early-out. The permutation is undone on return.
-    import os
-    sort = (n >= 2048
-            and (scene.cluster_lo is None
-                 or scene.cluster_lo.shape[0] >= 32)
-            and os.environ.get("RRT_TRACE_SORT", "1") != "0")
+    # Lanes are sorted once per trace by (direction octant, origin Morton
+    # cell): the shortlist traversal culls per 128-lane tile, and lanes
+    # that resolve together leave whole chunks dead for the chunk-level
+    # early-out. The permutation is undone on return.
+    perm = lane_order(scene, o, d)
+    sort = perm is not None
     if sort:
-        ext = jnp.where(ghi > glo, ghi - glo, 1.0)
-        q = jnp.clip(((o - glo) / ext) * 127.0, 0.0, 127.0).astype(jnp.int32)
-        m = _morton7(q[:, 0]) << 2 | _morton7(q[:, 1]) << 1 | _morton7(q[:, 2])
-        octant = ((d[:, 0] < 0).astype(jnp.int32) * 4
-                  + (d[:, 1] < 0).astype(jnp.int32) * 2
-                  + (d[:, 2] < 0).astype(jnp.int32))
-        perm = jnp.argsort(octant * (1 << 21) + m)
         o = o[perm]
         d = d[perm]
 
     # Coarse culling boxes for the phase-A chord test. The global scene
     # bbox is uselessly coarse for a Cornell box: its interior is empty
-    # (walls are thin), yet every interior-crossing chord "touches" it —
-    # measured median 37 testable segments/lane on CBbunny, which keeps
-    # the phase-B loop hot for rays that can never hit anything. Testing
-    # against per-16-cluster SUPERCLUSTER boxes (≈28 for CBbunny) instead
-    # collapses that to the handful of chords that pass near actual
+    # (walls are thin), yet every interior-crossing chord "touches" it,
+    # which keeps the phase-B loop hot for rays that can never hit
+    # anything. Testing against per-16-cluster SUPERCLUSTER boxes (≈28
+    # for a 28.6k-triangle mesh) instead collapses that to the handful of chords that pass near actual
     # geometry. Live spheres contribute one union box.
     boxes = []
     if scene.cluster_lo is not None:
@@ -483,6 +507,9 @@ def _trace_curved_marched_slab(
             unp(found), unp(t_b), unp(prim_b), unp(b1_b), unp(b2_b),
             unp(so_b), unp(sd_b), unp(seg_b))
 
+    cut = lambda a: a[:n_real]
+    found, t_b, prim_b, b1_b, b2_b, so_b, sd_b, seg_b = map(
+        cut, (found, t_b, prim_b, b1_b, b2_b, so_b, sd_b, seg_b))
     hit = build_hit(scene, so_b, sd_b, found, t_b, prim_b, b1_b, b2_b)
     seg = seg_b
     if shape != found.shape:
@@ -497,22 +524,31 @@ def _trace_curved_marched_slab(
     return out if len(out) > 1 else hit
 
 
-def _pallas_eligible(scene: SceneData) -> bool:
-    from rrt_tpu.ops.trace_kernel import pallas_supported
-    return jax.default_backend() == "tpu" and pallas_supported(scene)
+def _resolve_backend(backend: str) -> str:
+    """"auto" is the fused kernel on a CUDA GPU and the XLA path elsewhere;
+    "pallas" where the kernel cannot compile is an error."""
+    from rrt_tpu.ops.trace_kernel import kernel_available
+    if backend == "auto":
+        return "pallas" if kernel_available() else "xla"
+    if backend == "pallas" and not kernel_available():
+        raise ValueError(
+            "trace backend 'pallas' needs a CUDA GPU; this platform is "
+            f"{jax.default_backend()!r} (use 'auto' or 'xla')")
+    if backend not in ("pallas", "xla"):
+        raise ValueError(f"unknown trace backend {backend!r}")
+    return backend
 
 
 def _trace_sharded(scene, bh, rays, chunk, seg_group, early_exit, n_seg,
-                   backend, accel, return_stats, sort_hint, occlusion,
+                   backend, accel, return_stats, occlusion,
                    mesh, axis):
-    """Device-mesh trace: `shard_map` over the lane axis (VERDICT r4
-    item 3, redesigned).
+    """Device-mesh trace: `shard_map` over the lane axis.
 
     Closest-hit is embarrassingly parallel per lane — the only cross-lane
     machinery is the coherence lane sort, a pure perf heuristic. Under
     GSPMD, the traversal's internal (lanes) → (tiles, 128) reshapes cross
     shard boundaries and emit all-gather/collective-permute chains
-    (BASELINE.md r4 scaling breakdown: 626 collectives on an 8-mesh).
+    (hundreds of collectives on an 8-device mesh).
     Running the WHOLE per-shard trace inside `shard_map` makes every
     reshape, sort and tile loop shard-local by construction: the compiled
     program's only collective is one (2,)-psum of the work counters.
@@ -557,7 +593,7 @@ def _trace_sharded(scene, bh, rays, chunk, seg_group, early_exit, n_seg,
     def local(sc, b, r):
         h, st = trace(sc, b, r, chunk, seg_group, early_exit, n_seg,
                       backend, accel, return_stats=True,
-                      sort_hint=sort_hint, occlusion=occlusion)
+                      occlusion=occlusion)
         return h, jax.lax.psum(st, axis)
 
     hit_spec = Hit(hit=lspec(rays.min_t), t=lspec(rays.min_t),
@@ -582,14 +618,15 @@ def trace(scene: SceneData, bh: BlackHoleParams, rays: Rays,
           chunk: int = 512, seg_group: int = 9,
           early_exit: bool = True, n_seg: int = None,
           backend: str = "auto", accel: str = "auto",
-          return_stats: bool = False, sort_hint: str = "dir",
+          return_stats: bool = False,
           occlusion: bool = False, mesh=None, lane_axis: str = "batch"):
     """Dispatch on the (static) curvature flag and backend.
 
-    backend: "pallas" = fused on-chip kernel (TPU, SMEM-sized scenes),
-    "xla" = composed XLA ops (any platform, reverse-differentiable),
-    "auto" = pallas when eligible. The differentiable path must use "xla"
-    (the kernel has no custom VJP yet).
+    backend: "pallas" = the fused Triton kernel (ops/trace_kernel.py, CUDA
+    GPUs only), "xla" = composed XLA ops (any platform), "auto" = pallas
+    on a GPU, xla elsewhere. Differentiable renders go through
+    `trace_diff`, which uses this trace only for its detached discrete
+    decisions.
 
     mesh/lane_axis: when a multi-device `jax.sharding.Mesh` is given, the
     trace runs under `shard_map` over the lane axis so every tile reshape
@@ -598,11 +635,10 @@ def trace(scene: SceneData, bh: BlackHoleParams, rays: Rays,
     return_stats=True additionally returns a (2,) f32 of measured work
     counters [primitive tests paid, bbox slab tests paid] summed over
     lanes — the reference's total_isects analog (bvh.h:140). Both the
-    Pallas kernel and the XLA paths measure them (the legacy seg-group
-    fold, early_exit=False, reports zeros).
+    kernel and the XLA paths measure them (the legacy seg-group fold,
+    early_exit=False, reports zeros).
     """
-    if backend == "auto":
-        backend = "pallas" if _pallas_eligible(scene) else "xla"
+    backend = _resolve_backend(backend)
     if mesh is not None and lane_axis not in mesh.shape \
             and len(mesh.axis_names) == 1:
         lane_axis = mesh.axis_names[0]   # 1-D mesh: use its axis name
@@ -613,7 +649,7 @@ def trace(scene: SceneData, bh: BlackHoleParams, rays: Rays,
                 bh is not None and bh.enabled) else 1
         return _trace_sharded(scene, bh, rays, chunk, seg_group,
                               early_exit, n_seg, backend, accel,
-                              return_stats, sort_hint, occlusion,
+                              return_stats, occlusion,
                               mesh, lane_axis)
     if backend == "pallas":
         from rrt_tpu.ops.trace_kernel import pallas_trace
@@ -621,8 +657,7 @@ def trace(scene: SceneData, bh: BlackHoleParams, rays: Rays,
             n_seg = ss.n_segments(float(bh.delta_theta)) if (
                 bh is not None and bh.enabled) else 1
         return pallas_trace(scene, bh, rays, n_seg=n_seg,
-                            return_stats=return_stats,
-                            sort_hint=sort_hint, occlusion=occlusion)
+                            return_stats=return_stats, occlusion=occlusion)
     if bh is not None and bh.enabled:
         if n_seg is None:
             n_seg = ss.n_segments(float(bh.delta_theta))
@@ -645,8 +680,7 @@ def trace_with_seg(scene: SceneData, bh: BlackHoleParams, rays: Rays,
     rays with no geometry event). Used by the differentiable
     reconstruction below."""
     curved = bh is not None and bh.enabled
-    if backend == "auto":
-        backend = "pallas" if _pallas_eligible(scene) else "xla"
+    backend = _resolve_backend(backend)
     if n_seg is None:
         n_seg = ss.n_segments(float(bh.delta_theta)) if curved else 1
     if backend == "pallas":
@@ -666,15 +700,15 @@ def trace_diff(scene: SceneData, bh: BlackHoleParams, rays: Rays,
     reconstruction.
 
     The discrete structure (winning primitive, winning segment, hit/absorb
-    masks) comes from the non-differentiable fast path (the fused Pallas
-    kernel on TPU) under stop_gradient; the continuous payload is then
+    masks) comes from the non-differentiable fast path (the fused kernel
+    on a GPU) under stop_gradient; the continuous payload is then
     RE-DERIVED differentiably: the geodesic march is replayed as a
     `lax.scan` (cheap — no intersections) to get the winning chord as a
     function of the black-hole parameters, and only the ONE winning
     primitive per ray is re-intersected. Gradients flow through chord
     geometry → t/p/n → shading exactly as in the monolithic XLA autodiff
     path, at a tiny fraction of its cost (which brute-forced rays × tris ×
-    segments through reverse mode; see VERDICT r1 item 2).
+    segments through reverse mode).
 
     Matches the AD decomposition promised in SURVEY §7: detached discrete
     decisions, reparameterized continuous factors. Visibility gradients
@@ -691,16 +725,24 @@ def trace_diff(scene: SceneData, bh: BlackHoleParams, rays: Rays,
     shape = h0.t.shape
 
     if curved:
-        sgc = jnp.clip(seg, 0, n_seg - 1)
+        # winning segment; lanes without a hit need no chord at all (their
+        # payload is the original ray, like the non-differentiable trace)
+        sgc = jnp.where(hitm, jnp.clip(seg, 0, n_seg - 1), 0)
+        o0 = jax.lax.stop_gradient(rays.o)
+        d0 = jax.lax.stop_gradient(rays.d)
 
         # Replay the march differentiably; collect every chord's (o, d).
-        # Lanes are FROZEN past their winning segment: marching absorbed
-        # lanes further would integrate u = 1/d to infinity inside the
-        # horizon, and inf forward values poison the backward pass with
-        # NaN even under zero cotangents.
+        # Past its winning segment a lane's steps are discarded, and they
+        # are evaluated on the lane's detached first ray instead of its
+        # frozen state: marched further (wrapped chords at 1e9 scale,
+        # absorbed lanes inside the horizon) a lane can reach inf, and an
+        # inf forward value poisons the backward pass with NaN even under
+        # zero cotangents, whatever the compiler's float modes.
         def step(c, s):
             pos, dirn, dead = c
-            nd, clen, sdead = ss.micro_step(pos, dirn, bh)
+            past = (s > sgc)[..., None]
+            nd, clen, sdead = ss.micro_step(jnp.where(past, o0, pos),
+                                            jnp.where(past, d0, dirn), bh)
             # Teleport (u<=0 wrap) chords: freeze the AD chain. The wrap
             # region is chaotic — Jacobians through consecutive 1e9-scale
             # chords explode (and overflow f32 to inf/NaN in reverse
@@ -761,7 +803,6 @@ def occluded(scene: SceneData, bh: BlackHoleParams, rays: Rays,
              early_exit: bool = True, n_seg: int = None,
              backend: str = "auto", return_stats: bool = False,
              mesh=None, lane_axis: str = "batch"):
-    # (shadow batches sort origin-major — see pallas_trace sort_hint)
     """Shadow query: does `bvh->intersect(ray)` report a hit?
 
     Note the reference quirks this inherits: in curved mode the shadow
@@ -781,7 +822,7 @@ def occluded(scene: SceneData, bh: BlackHoleParams, rays: Rays,
     # bound, bvh.cpp:107-108)
     out = trace(sg(scene), sg(bh), sg(rays), chunk, seg_group, early_exit,
                 n_seg, backend, return_stats=return_stats,
-                sort_hint="origin", occlusion=True, mesh=mesh,
+                occlusion=True, mesh=mesh,
                 lane_axis=lane_axis)
     if return_stats:
         h, st = out

@@ -1,4 +1,4 @@
-"""CLI for the Kerr black-hole + accretion-disk scene (BASELINE config 5).
+"""CLI for the Kerr black-hole + accretion-disk scene.
 
     python -m rrt_tpu.kerr_cli -f kerr.png -r 1024 1024 --mass 1 --spin 0.9 \
         --eye 0 3 22 --steps 600 -s 4
@@ -39,6 +39,8 @@ def main(argv=None):
     from rrt_tpu.physics import kerr
     from rrt_tpu.render import film
     from rrt_tpu.render import kerr_scene as K
+    from rrt_tpu.utils.jax_cache import enable_compile_cache
+    enable_compile_cache()
 
     env = None
     if args.envmap:

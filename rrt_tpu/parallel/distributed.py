@@ -1,26 +1,25 @@
 """Multi-host execution: `jax.distributed` init + global-mesh helpers.
 
 The reference is a single-process pthread renderer (`pathtracer.cpp:243-281`);
-its only "multi-host" story is running the binary twice. The TPU-native
-equivalent (SURVEY §2.5) is one SPMD program per host under
+its only "multi-host" story is running the binary twice. The equivalent
+here (SURVEY §2.5) is one SPMD program per host under
 `jax.distributed.initialize`: every process sees the global device list,
 builds the same 1-D lane mesh over it, feeds its *local* shard of the ray
-batch through `make_global_batch`, and GSPMD inserts the ICI/DCN collectives
+batch through `make_global_batch`, and GSPMD inserts the collectives
 (the film gather, gradient all-reduce) automatically.
 
 Entry points:
   initialize(...)        — explicit coordinator/num_processes/process_id
   initialize_from_env()  — picks up RRT_COORDINATOR / RRT_NUM_PROCESSES /
                            RRT_PROCESS_ID (or defers to jax's own cluster
-                           auto-detection on TPU pods, where initialize()
-                           needs no arguments at all)
+                           auto-detection where the platform provides it)
   global_mesh()          — 1-D "batch" mesh over all processes' devices
   make_global_batch(...) — local numpy shard → globally-sharded jax.Array
   all_processes_done()   — barrier (used around checkpoint writes)
 
 Tested in tests/test_distributed.py by spawning 2 real OS processes with a
 localhost coordinator on the CPU backend (gloo collectives), asserting a
-cross-process psum — the same code path a v5e pod slice takes over ICI.
+cross-process psum — the same code path a multi-host GPU run takes.
 """
 from __future__ import annotations
 
@@ -44,8 +43,9 @@ def initialize(coordinator_address: Optional[str] = None,
                local_device_ids: Optional[Sequence[int]] = None) -> None:
     """Idempotent wrapper over `jax.distributed.initialize`.
 
-    On TPU pods all arguments are optional (jax auto-detects the cluster);
-    on CPU/GPU fleets pass coordinator/num_processes/process_id explicitly.
+    Where the platform describes the cluster, all arguments are optional
+    (jax auto-detects it); otherwise, as on a single GPU host, pass
+    coordinator (e.g. "localhost:<port>"), num_processes and process_id.
     """
     if is_initialized():
         return

@@ -1,4 +1,4 @@
-"""Device-mesh sharding: the TPU replacement for the pthread tile pool.
+"""Device-mesh sharding: the replacement for the pthread tile pool.
 
 The reference parallelizes with a mutex work queue over 32×32 tiles
 (`pathtracer.cpp:243-281`, `work_queue.h:11-51`). Here the unit of
@@ -6,8 +6,7 @@ parallelism is the flat ray-lane axis of every megabatch: lanes are sharded
 across a 1-D `jax.sharding.Mesh` ("batch" axis), the scene/BVH/BSDF tables
 are replicated (they are small), and XLA's GSPMD partitioner runs the whole
 wavefront per-device with no cross-device traffic in the forward pass.
-Gradients of sharded renders are all-reduced over ICI automatically by
-GSPMD when the loss sums over lanes (the psum the reference never needed,
+Gradients of sharded renders are all-reduced automatically by GSPMD when the loss sums over lanes (the psum the reference never needed,
 SURVEY §2.5).
 
 Multi-host: the same program runs under `jax.distributed.initialize`; the

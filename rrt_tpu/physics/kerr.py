@@ -35,10 +35,11 @@ from typing import NamedTuple, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+
+from rrt_tpu.types import pytree_dataclass
 
 
-@struct.dataclass
+@pytree_dataclass
 class KerrParams:
     position: jnp.ndarray   # (3,) hole center (world frame; spin axis = +y)
     mass: jnp.ndarray       # () geometric mass M (r_s = 2M)

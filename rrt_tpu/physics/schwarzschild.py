@@ -93,10 +93,9 @@ def micro_step(pos, direction, bh: BlackHoleParams):
     at_center = d2 <= 0
     dist = jnp.sqrt(jnp.where(at_center, 1.0, d2))
     # reciprocal-multiply normalizations, NOT per-axis divisions: the
-    # fused kernel's march (ops/trace_kernel._kernel.march) uses the same
-    # forms — VPU division is ~60-70 cycles per op there — and the two
-    # compilations must stay bit-identical on calm lanes
-    # (tests/test_pallas.py::test_kernel_matches_xla).
+    # fused kernel's march (ops/trace_kernel._kernel.march) repeats these
+    # operations in this order, so the two compilations agree on calm
+    # lanes (ops/kernel_check.py, tests/test_pallas.py).
     rdist = 1.0 / dist
     x_hat = x_axis * rdist[..., None]
     # Magnitude caps (u ≤ 1e12, |u'| ≤ 1e15, |f| ≤ 1e30): lanes that

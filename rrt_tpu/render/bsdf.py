@@ -3,7 +3,7 @@
 The reference dispatches through C++ virtual calls on per-primitive BSDF
 objects (`bsdf.h:57-113`); here each ray lane gathers its material row from
 the `BSDFTable` and all six models are evaluated branchlessly, with the
-lane's `kind` tag selecting the result — the TPU-friendly replacement for
+lane's `kind` tag selecting the result — the batched replacement for
 virtual dispatch (no divergence, everything fuses into the wavefront
 kernel).
 

@@ -14,7 +14,7 @@ Visibility gradients are explicitly out of scope (SURVEY §7 hard parts).
 
 `train_step` is the flagship "training" loop — inverse rendering: L2 image
 loss against a target, gradient over the parameter pytree; under a sharded
-lane axis GSPMD all-reduces the parameter gradients over ICI automatically.
+lane axis GSPMD all-reduces the parameter gradients automatically.
 """
 from __future__ import annotations
 
@@ -23,14 +23,13 @@ from typing import NamedTuple, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from rrt_tpu.render.integrator import est_radiance
-from rrt_tpu.types import BlackHoleParams, Rays, SceneData
+from rrt_tpu.types import BlackHoleParams, Rays, SceneData, pytree_dataclass
 from rrt_tpu.utils.config import RenderConfig
 
 
-@struct.dataclass
+@pytree_dataclass
 class SceneParams:
     """Differentiable parameter pytree."""
 

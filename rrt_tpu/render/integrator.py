@@ -7,7 +7,7 @@ Russian roulette (continue-prob 0.7, always-continue at the first vertex,
 and the 1/0.7 weight applied even there — reproduced faithfully), delta-BSDF
 emission pickup, and envmap misses.
 
-TPU reformulation: the recursion becomes an iterative wavefront over a flat
+Batched reformulation: the recursion becomes an iterative wavefront over a flat
 lane batch — every vertex step shades ALL lanes in lockstep (masked), does
 one batched NEE occlusion trace and one batched bounce trace, and carries
 (L, β, alive) through a `lax.scan` over the remaining depth. Discrete
@@ -49,10 +49,9 @@ def _n_seg(cfg: RenderConfig):
 STATS0 = jnp.zeros(2, jnp.float32)  # [prim tests, bbox tests] measured
 
 
-def _trace(scene, bh, rays, cfg: RenderConfig, sort_hint="dir",
-           mesh=None):
+def _trace(scene, bh, rays, cfg: RenderConfig, mesh=None):
     """Closest hit for radiance: under autodiff, the fast discrete primal
-    (Pallas kernel on TPU) + differentiable reconstruction
+    (the fused kernel on a GPU) + differentiable reconstruction
     (`trace_diff`); otherwise the fast path directly.
 
     Returns (Hit, (2,) measured work counters) — see geometry.trace.trace.
@@ -62,7 +61,7 @@ def _trace(scene, bh, rays, cfg: RenderConfig, sort_hint="dir",
                                  backend=cfg.trace_backend), STATS0
     return tracer.trace(scene, bh, rays, n_seg=_n_seg(cfg),
                         backend=cfg.trace_backend, return_stats=True,
-                        sort_hint=sort_hint, mesh=mesh)
+                        mesh=mesh)
 
 
 def _trace_discrete(scene, bh, rays, cfg: RenderConfig, mesh=None):
@@ -152,7 +151,7 @@ def direct_lighting_importance(
         return jnp.sum(jnp.where(ok, contrib, 0.0), axis=0), tstats
 
     # Lane-blow-up guard: at -l 64 the stacked axis would multiply every
-    # shading lane 64-128x through one trace (VMEM blow-up). Chunk the
+    # shading lane 64-128x through one trace (memory blow-up). Chunk the
     # axis at cfg.nee_chunk and lax.map sequentially over chunks; the
     # common case (few lights, small -l) stays a single fused trace.
     S = total

@@ -1,4 +1,4 @@
-"""Kerr black hole + emissive accretion disk renderer (BASELINE config 5).
+"""Kerr black hole + emissive accretion disk renderer.
 
 New capability beyond the reference (which has neither Kerr nor a disk):
 camera rays are integrated through the Kerr metric (physics/kerr.py) and
@@ -25,20 +25,19 @@ from typing import NamedTuple, Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from rrt_tpu.physics import kerr
 from rrt_tpu.scene import envmap as envlib
-from rrt_tpu.types import EnvMap
+from rrt_tpu.types import EnvMap, pytree_dataclass, static_field
 
 
-@struct.dataclass
+@pytree_dataclass
 class DiskParams:
     r_in: jnp.ndarray       # () inner radius (≥ ISCO for realism)
     r_out: jnp.ndarray      # ()
     emission: jnp.ndarray   # (3,) base radiance color
     q: jnp.ndarray          # () radial falloff exponent
-    beaming: bool = struct.field(pytree_node=False, default=True)
+    beaming: bool = static_field(True)
 
 
 def default_disk(mass: float = 1.0) -> DiskParams:

@@ -1,4 +1,4 @@
-"""Acceleration-structure visualization — the TPU analog of the reference's
+"""Acceleration-structure visualization — the headless analog of the reference's
 interactive BVH visualizer (`pathtracer.cpp:330-423`, keypress `V`: draws
 node bboxes and walks the tree).
 

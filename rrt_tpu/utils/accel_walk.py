@@ -7,12 +7,12 @@ the right child (`pathtracer.cpp:520-534`); `visualize_accel()` then draws
 every node box dim, the selection highlighted, its children brighter, and
 the contained primitives shaded per child (`pathtracer.cpp:330-423`).
 
-The TPU build has no GL window and no binary BVH: its accelerator is the
-kernel's dense part → supercluster → cluster → triangle culling hierarchy
-(`ops/trace_kernel.pallas_trace_raw`, derived from the Morton-ordered
-triangle rows). This module mirrors those tables on the host (same
-PART_TRIS / SUP / scene-adaptive cluster-size constants) and exposes the
-same walk over the N-ary tree:
+There is no GL window and no binary BVH here: the accelerator is the
+trace kernel's group → cluster → triangle culling hierarchy
+(`ops/trace_kernel.build_tables`, derived from the Morton-ordered
+triangle rows: TILE triangles per cluster, GROUP clusters per group).
+This module mirrors those tables on the host and exposes the same walk
+over the N-ary tree:
 
   up    — pop to the parent (root stays put, like the reference)
   left  — descend into the FIRST child (the reference's "push child")
@@ -49,9 +49,9 @@ def _node_boxes(lo_tri, hi_tri, group):
 
 
 class KernelHierarchy:
-    """Host mirror of the kernel's culling tables (same constants as
-    `pallas_trace_raw`: PART_TRIS parts, SUP-cluster superclusters,
-    scene-adaptive `_cs_k` clusters)."""
+    """Host mirror of the kernel's culling tables: the root, groups of
+    GROUP clusters, clusters of TILE triangle rows (`trace_kernel.TILE`,
+    `trace_kernel.GROUP`)."""
 
     def __init__(self, scene):
         v0 = np.asarray(scene.tri_v0, np.float64)
@@ -64,44 +64,35 @@ class KernelHierarchy:
                       np.minimum(np.minimum(v0, v1), v2), np.inf)
         hi = np.where(live[:, None],
                       np.maximum(np.maximum(v0, v1), v2), -np.inf)
-        T = v0.shape[0]
-        self.cs = tk._cs_k(T)
-        self.n_parts = max(1, -(-T // tk.PART_TRIS))
-        self.part_rows = -(-T // self.n_parts)
-        # levels: 0 root, 1 parts, 2 superclusters, 3 clusters
-        self.cl_lo, self.cl_hi = _node_boxes(lo, hi, self.cs)
-        self.sup_lo, self.sup_hi = _node_boxes(lo, hi, self.cs * tk.SUP)
-        self.part_lo, self.part_hi = _node_boxes(lo, hi, self.part_rows)
-        self.root_lo = self.part_lo.min(axis=0)
-        self.root_hi = self.part_hi.max(axis=0)
+        self.cs = tk.TILE
+        # row widths per level: 0 root, 1 groups, 2 clusters
+        self.width = (v0.shape[0], tk.TILE * tk.GROUP, tk.TILE)
+        self.cl_lo, self.cl_hi = _node_boxes(lo, hi, self.width[2])
+        self.grp_lo, self.grp_hi = _node_boxes(lo, hi, self.width[1])
+        self.root_lo = self.grp_lo.min(axis=0)
+        self.root_hi = self.grp_hi.max(axis=0)
 
     def boxes(self, level):
         return [(self.root_lo[None], self.root_hi[None]),
-                (self.part_lo, self.part_hi),
-                (self.sup_lo, self.sup_hi),
+                (self.grp_lo, self.grp_hi),
                 (self.cl_lo, self.cl_hi)][level]
 
     def n_children(self, level, idx):
-        if level == 0:
-            return self.n_parts
-        if level == 1:                       # superclusters in part idx
-            return max(1, self.part_rows // (self.cs * tk.SUP))
-        if level == 2:
-            return tk.SUP
-        return 0
+        """Children of node (level, idx) that cover at least one row."""
+        if level == len(self.width) - 1:
+            return 0
+        t0, t1 = self.tri_range(level, idx)
+        return -(-(t1 - t0) // self.width[level + 1])
 
     def child_index(self, level, idx, child):
         """Global index of `child` under node (level, idx)."""
-        return idx * self.n_children(level, idx) + child \
+        return idx * (self.width[level] // self.width[level + 1]) + child \
             if level else child
 
     def tri_range(self, level, idx):
         """[start, stop) triangle rows covered by node (level, idx)."""
-        if level == 0:
-            return 0, self.tris.shape[0]
-        w = {1: self.part_rows, 2: self.cs * tk.SUP, 3: self.cs}[level]
-        start = idx * w
-        return start, min(start + w, self.tris.shape[0])
+        start = idx * self.width[level]
+        return start, min(start + self.width[level], self.tris.shape[0])
 
 
 class AccelWalk:
@@ -232,7 +223,7 @@ class AccelWalk:
     def status(self):
         level, idx = self.selected
         t0, t1 = self.h.tri_range(level, idx)
-        names = ["root", "part", "supercluster", "cluster"]
+        names = ["root", "group", "cluster"]
         return {"level": names[level], "index": int(idx),
                 "tri_rows": [int(t0), int(t1)],
                 "depth": len(self.stack)}

@@ -1,11 +1,10 @@
-"""Measured dispatch-planner calibration (VERDICT r4 item 5).
+"""Measured dispatch-planner calibration.
 
 The renderer's dispatch planner bounds per-dispatch device time with a
 two-constant cost model: `calls × ALPHA + lanes·segments × BETA` seconds
-(`render/renderer.py::_dispatch_plan`). Through r4 those constants were
-hardcoded guesses. Here they are FIT from a one-shot measured probe —
-two steady-state trace timings at different lane counts on the actual
-device and scene — and persisted per (device kind, backend) in the cache
+(`render/renderer.py::_dispatch_plan`). The constants are FIT from a
+one-shot measured probe — two steady-state trace timings at different
+lane counts on the actual device and scene — and persisted per (device kind, backend) in the cache
 directory, so every later process reuses the measurement.
 
 The probe only runs when the planner would actually bind (the naive

@@ -1,17 +1,22 @@
 """ctypes bindings to the native data-loading library (native/fastload.cpp).
 
 The reference's scene-build chain is C++ (collada.cpp parsing, bvh.cpp
-construction); this module is its TPU-native runtime counterpart: text→
-array parsing, Morton ordering, cluster bboxes, and vertex normals in C++,
-with transparent NumPy fallbacks when the library isn't built.
+construction); this module is its runtime counterpart here: text→array
+parsing, Morton ordering, cluster bboxes, and vertex normals in C++, with
+transparent NumPy fallbacks when the library cannot be built.
 
-Build with tools/build_native.sh (auto-attempted on first import).
+The library is built from source on first use into native/build/ (listed
+in .gitignore), or ahead of time with `python -m rrt_tpu.utils.native`.
+The build writes a private temporary file and renames it into place, so
+concurrent first uses (parallel test workers) never load a partial file.
 """
 from __future__ import annotations
 
 import ctypes
 import os
 import subprocess
+import sys
+import tempfile
 from typing import Optional
 
 import numpy as np
@@ -21,7 +26,25 @@ _TRIED = False
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
+_SRC = os.path.join(_ROOT, "native", "fastload.cpp")
 _SO = os.path.join(_ROOT, "native", "build", "libfastload.so")
+
+
+def build() -> str:
+    """Compile native/fastload.cpp into native/build/libfastload.so."""
+    os.makedirs(os.path.dirname(_SO), exist_ok=True)
+    fd, tmp = tempfile.mkstemp(prefix=".libfastload.", suffix=".so",
+                               dir=os.path.dirname(_SO))
+    os.close(fd)
+    try:
+        subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
+                        _SRC, "-o", tmp], check=True, capture_output=True,
+                       timeout=300)
+        os.replace(tmp, _SO)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return _SO
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -30,11 +53,9 @@ def _load() -> Optional[ctypes.CDLL]:
         return _LIB
     _TRIED = True
     if not os.path.exists(_SO):
-        script = os.path.join(_ROOT, "tools", "build_native.sh")
         try:
-            subprocess.run(["bash", script], check=True,
-                           capture_output=True, timeout=120)
-        except Exception:
+            build()
+        except (OSError, subprocess.SubprocessError):
             return None
     try:
         lib = ctypes.CDLL(_SO)
@@ -137,3 +158,8 @@ def vertex_normals(verts, tris) -> Optional[np.ndarray]:
     lib.vertex_normals(_dp(verts), len(verts), _ip(tris), len(tris),
                        _dp(out))
     return out
+
+
+if __name__ == "__main__":
+    print(build())
+    sys.exit(0 if available() else 1)

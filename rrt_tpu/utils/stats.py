@@ -25,10 +25,10 @@ class RenderStats:
     bounce_rays: int = 0
     geodesic_segments_max: int = 0
     wall_seconds: float = 0.0
-    # MEASURED traversal work from the Pallas kernel's in-kernel counters
-    # (VERDICT r3 item 1): primitive tests and bbox slab tests actually
-    # paid, summed over every traced lane. Zero when the XLA fallback
-    # traced (it has no counters). The reference's analog: total_isects,
+    # MEASURED traversal work from the trace's counters (the kernel's
+    # per-lane counters, or the XLA path's per-chunk ones): primitive
+    # tests and bbox slab tests actually paid, summed over every traced
+    # lane. The reference's analog: total_isects,
     # avg ~112 tests/ray on CBbunny (bvh.h:140, pathtracer.cpp:637-638).
     measured_isect_tests: float = 0.0
     measured_bbox_tests: float = 0.0

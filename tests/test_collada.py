@@ -1,9 +1,6 @@
-"""Scene I/O tests: parse every shipped .dae and check known quantities
-against the reference's documented structure (SURVEY.md §2.2, scene files
-under pathtracer/dae/)."""
-import glob
+"""Scene I/O tests: parse every committed scene (scenes/*.dae, written by
+rrt_tpu/scene/cornell.py) and check the quantities the generator fixes."""
 import math
-import os
 
 import numpy as np
 import pytest
@@ -11,20 +8,12 @@ import pytest
 from rrt_tpu.io import collada
 from rrt_tpu.scene.build import load_scene
 from rrt_tpu.types import LIGHT_AREA, LIGHT_HEMISPHERE
-
-DAE = "/root/reference/pathtracer/dae"
-
-
-def _scenes():
-    out = []
-    for sub in ("sky", "meshedit", "keenan"):
-        out += sorted(glob.glob(os.path.join(DAE, sub, "*.dae")))
-    return [f for f in out if "~" not in f]
+from rrt_tpu.scene.cornell import SCENES, scene_path
 
 
-@pytest.mark.parametrize("path", _scenes(), ids=os.path.basename)
-def test_parse_all_scenes(path):
-    scene, cam = load_scene(path)
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_parse_all_scenes(name):
+    scene, cam = load_scene(scene_path(name))
     n_tris = int(np.sum(np.asarray(scene.tri_bsdf) >= 0))
     n_sph = int(np.sum(np.asarray(scene.sph_bsdf) >= 0))
     assert n_tris + n_sph > 0
@@ -36,10 +25,10 @@ def test_parse_all_scenes(path):
 
 
 def test_cbspheres_lambertian_structure():
-    scene, cam = load_scene(f"{DAE}/sky/CBspheres_lambertian.dae")
-    # 2 unit-ish spheres + Cornell box walls (5 quads = 10 tris) + light quad
+    scene, cam = load_scene(scene_path("cornell_lambertian"))
+    # 2 spheres + the open box's floor, back and side walls (4 quads)
     assert int(np.sum(np.asarray(scene.sph_bsdf) >= 0)) == 2
-    assert int(np.sum(np.asarray(scene.tri_bsdf) >= 0)) == 12
+    assert int(np.sum(np.asarray(scene.tri_bsdf) >= 0)) == 8
     np.testing.assert_allclose(np.asarray(scene.sph_radius)[:2], 0.3, atol=1e-6)
 
     # area light at (0, 1.49, 0) pointing down, dims 0.6 x 0.8
@@ -62,16 +51,17 @@ def test_cbspheres_lambertian_structure():
 
 
 def test_cbempty_point_light():
-    # CBempty.dae has only a technique_common <point> light (no CGL profile)
+    # the empty box has only a technique_common <point> light (no CGL
+    # profile)
     from rrt_tpu.types import LIGHT_POINT
-    scene, _ = load_scene(f"{DAE}/sky/CBempty.dae")
+    scene, _ = load_scene(scene_path("cornell_empty"))
     assert list(np.asarray(scene.lights.kind)) == [LIGHT_POINT]
 
 
 def test_cbbunny_tri_count():
-    scene, _ = load_scene(f"{DAE}/sky/CBbunny.dae")
-    # 28,576-tri bunny (SURVEY §4 fixture list) + 12 box tris
-    assert int(np.sum(np.asarray(scene.tri_bsdf) >= 0)) == 28588
+    scene, _ = load_scene(scene_path("cornell_blob"))
+    # 28,576-tri seeded blob (the BVH-scale stand-in) + 8 box tris
+    assert int(np.sum(np.asarray(scene.tri_bsdf) >= 0)) == 28584
 
 
 def test_vertex_normals_unit_and_smooth():
@@ -84,7 +74,7 @@ def test_vertex_normals_unit_and_smooth():
 
 
 def test_camera_settings_roundtrip(tmp_path):
-    _, cam = load_scene(f"{DAE}/sky/CBspheres_lambertian.dae")
+    _, cam = load_scene(scene_path("cornell_lambertian"))
     p = tmp_path / "cam.txt"
     cam.dump_settings(str(p))
     from rrt_tpu.scene.camera import Camera
@@ -97,7 +87,7 @@ def test_camera_settings_roundtrip(tmp_path):
 
 
 def test_materials_glass_mirror():
-    info = collada.load(f"{DAE}/sky/CBspheres.dae")
+    info = collada.load(scene_path("cornell_specular"))
     mats = [n.instance.material for n in info.nodes
             if isinstance(n.instance, collada.SphereInfo)]
     kinds = sorted(m.kind for m in mats if m)
@@ -108,7 +98,7 @@ def test_polymesh_normals_texcoords_parsed():
     """Authored NORMAL/TEXCOORD sources + per-corner indices round-trip
     (collada.cpp:718-846); the renderer recomputes normals like the
     reference, but the data must be carried."""
-    info = collada.load(f"{DAE}/sky/CBspheres_lambertian.dae")
+    info = collada.load(scene_path("cornell_lambertian"))
     pm = [n.instance for n in info.nodes
           if type(n.instance).__name__ == "PolymeshInfo"]
     floor = [p for p in pm if len(p.vertices) == 4][0]

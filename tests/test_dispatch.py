@@ -1,4 +1,4 @@
-"""Dispatch-planner calibration (VERDICT r4 item 5): the per-dispatch
+"""Dispatch-planner calibration: the per-dispatch
 cost-model constants are FIT from a measured probe (here a fake-clock
 runner), persisted per device, and the resulting plan keeps every
 dispatch under the budget."""
@@ -11,9 +11,9 @@ from rrt_tpu.render.renderer import Renderer
 from rrt_tpu.scene.build import load_scene
 from rrt_tpu.utils import dispatch_cal as dc
 from rrt_tpu.utils.config import BlackHoleConfig, RenderConfig
+from rrt_tpu.scene.cornell import scene_path
 
-DAE = "/root/reference/pathtracer/dae"
-SCENE = f"{DAE}/sky/CBspheres_lambertian.dae"
+SCENE = scene_path("cornell_lambertian")
 
 
 def test_fit_constants_recovers_fake_device():
@@ -36,15 +36,15 @@ def test_calibration_persisted_and_reused(tmp_path, monkeypatch):
         calls["n"] += 1
         return 0.3 + n * 1e-6
 
-    a1, b1 = dc.load_or_calibrate(str(tmp_path), "FakeTPU v9", "pallas",
+    a1, b1 = dc.load_or_calibrate(str(tmp_path), "FakeGPU v9", "pallas",
                                   runner, lane_cost_unit=1)
     assert calls["n"] == 2                       # two probe timings
     # second load: cache hit, no probe
-    a2, b2 = dc.load_or_calibrate(str(tmp_path), "FakeTPU v9", "pallas",
+    a2, b2 = dc.load_or_calibrate(str(tmp_path), "FakeGPU v9", "pallas",
                                   runner, lane_cost_unit=1)
     assert calls["n"] == 2
     assert (a1, b1) == (a2, b2)
-    with open(dc.cache_path(str(tmp_path), "FakeTPU v9", "pallas")) as f:
+    with open(dc.cache_path(str(tmp_path), "FakeGPU v9", "pallas")) as f:
         d = json.load(f)
     assert abs(d["alpha"] - a1) < 1e-12
 
@@ -61,7 +61,7 @@ def test_planner_caps_dispatch_with_measured_constants(tmp_path,
     """A heavy config on a slow fake device must be split so the modeled
     per-dispatch time stays under max_dispatch_seconds, using constants
     DERIVED from the (fake) probe rather than guessed."""
-    monkeypatch.setenv("RRT_JAX_CACHE", str(tmp_path))
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
     cfg = RenderConfig(width=64, height=64, ns_aa=4, ns_area_light=64,
                        max_ray_depth=40, seed=0,
                        black_hole=BlackHoleConfig(enabled=True),

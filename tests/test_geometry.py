@@ -10,8 +10,8 @@ from rrt_tpu.geometry import intersect as I
 from rrt_tpu.geometry import trace as T
 from rrt_tpu.types import BlackHoleParams, Rays
 from rrt_tpu.scene.build import load_scene
+from rrt_tpu.scene.cornell import scene_path
 
-DAE = "/root/reference/pathtracer/dae"
 
 
 def _rand_unit(rng, n):
@@ -75,7 +75,7 @@ def test_sphere_intersect_matches_oracle_inside_outside():
 
 
 def test_closest_hit_brute_matches_oracle_scene():
-    scene, cam = load_scene(f"{DAE}/sky/CBspheres_lambertian.dae")
+    scene, cam = load_scene(scene_path("cornell_lambertian"))
     rng = np.random.default_rng(2)
     N = 128
     # rays from inside the box
@@ -149,7 +149,7 @@ def test_segment_count():
 def test_curved_trace_near_flat_far_hole():
     """With a distant microscopic hole the chords are straight: curved trace
     must agree with flat trace (where the march reaches the geometry)."""
-    scene, cam = load_scene(f"{DAE}/sky/CBspheres_lambertian.dae")
+    scene, cam = load_scene(scene_path("cornell_lambertian"))
     rng = np.random.default_rng(4)
     N = 64
     o = np.tile([[0.0, 0.75, 0.0]], (N, 1)) + rng.uniform(-0.2, 0.2, (N, 3))
@@ -179,7 +179,7 @@ def test_curved_trace_near_flat_far_hole():
 
 
 def test_absorption_kills_ray():
-    scene, cam = load_scene(f"{DAE}/sky/CBspheres_lambertian.dae")
+    scene, cam = load_scene(scene_path("cornell_lambertian"))
     bh = BlackHoleParams(
         position=jnp.array([0.0, 0.75, 0.0]),
         radius=jnp.array(0.3),
@@ -196,10 +196,11 @@ def test_absorption_kills_ray():
 
 
 def test_occluded_flat_respects_max_t():
-    scene, _ = load_scene(f"{DAE}/sky/CBspheres_lambertian.dae")
-    # ray toward the ceiling: occluded with long max_t, clear with short
+    scene, _ = load_scene(scene_path("cornell_lambertian"))
+    # ray toward the back wall (t = 1): occluded with long max_t, clear
+    # with short
     o = jnp.array([[0.0, 0.2, 0.0]], jnp.float32)
-    d = jnp.array([[0.0, 1.0, 0.0]], jnp.float32)
+    d = jnp.array([[0.0, 0.0, -1.0]], jnp.float32)
     mk = lambda mt: Rays(o=o, d=d, min_t=jnp.zeros(1, jnp.float32),
                          max_t=jnp.full(1, mt, jnp.float32))
     assert bool(T.occluded(scene, None, mk(10.0))[0])
@@ -212,7 +213,7 @@ def test_cluster_closest_hit_matches_brute():
     coherent camera rays, incoherent random rays, and clipped max_t."""
     from rrt_tpu.geometry.intersect import (closest_hit_brute,
                                             closest_hit_cluster)
-    scene, cam = load_scene(f"{DAE}/meshedit/teapot.dae")
+    scene, cam = load_scene(scene_path("torus"))
     n = 900                                   # not a tile multiple
     w = 30
     xs = (jnp.arange(n) % w + 0.5) / w
@@ -247,7 +248,7 @@ def test_curved_marched_lane_slabs_match():
     from rrt_tpu.types import BlackHoleParams, Rays
 
     scene, cam = build_scene(
-        collada.load(f"{DAE}/sky/CBspheres_lambertian.dae"), 128, 128)
+        collada.load(scene_path("cornell_lambertian")), 128, 128)
     bh = BlackHoleParams(position=jnp.array([0.0, 1.0, 0.0]),
                          radius=jnp.float32(0.1),
                          delta_theta=jnp.float32(0.1))

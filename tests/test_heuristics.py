@@ -1,87 +1,44 @@
-"""Guardrails for the kernel's measured heuristics (VERDICT r4 item 8).
+"""Guardrails for the traversal's lane-sort gate (geometry/trace.py).
 
-These pin the DECISIONS (not the timings): the cluster-size switch and
-the lane-sort gate were each swept end-to-end on both scene classes
-(BASELINE.md r4 + tools/r5probe*.py r5); a change that flips them on a
-shipped scene class must be deliberate, with fresh measurements.
+These pin the DECISION, not a timing: the (octant, origin-Morton) lane
+sort runs only for batches large enough to amortize the argsort and for
+scenes with clusters to skip; a change that flips it for a committed
+scene class must be deliberate, with fresh measurements.
 """
-import numpy as np
+import jax.numpy as jnp
 
+from rrt_tpu.geometry import trace as T
 from rrt_tpu.io import collada
-from rrt_tpu.ops import trace_kernel as tk
 from rrt_tpu.scene.build import build_scene
-
-DAE = "/root/reference/pathtracer/dae"
-
-
-def test_cluster_size_switch_pinned(monkeypatch):
-    monkeypatch.delenv("RRT_CSK", raising=False)
-    # small scenes (bench primary class): 16; BVH-scale scenes: 8.
-    # Measured r5 end-to-end under the blk scan (CBbunny 512² 8spp GI
-    # proxy): cs8 4.68 s < cs16 5.13 s < cs32 6.06 s steady; cs4 is 11%
-    # slower than cs8. Small scenes: cs8 == cs16 within noise.
-    assert tk._cs_k(1024) == 16
-    assert tk._cs_k(8192) == 16
-    assert tk._cs_k(8193) == 8
-    assert tk._cs_k(28608) == 8        # CBbunny
-    monkeypatch.setenv("RRT_CSK", "64")
-    assert tk._cs_k(28608) == 64       # env override stays explicit
-
-
-def test_cluster_size_on_shipped_scene_classes(monkeypatch):
-    monkeypatch.delenv("RRT_CSK", raising=False)
-    small, _ = build_scene(
-        collada.load(f"{DAE}/sky/CBspheres_lambertian.dae"), 64, 64)
-    big, _ = build_scene(collada.load(f"{DAE}/sky/CBbunny.dae"), 64, 64)
-    assert tk._cs_k(small.n_tris) == 16
-    assert tk._cs_k(big.n_tris) == 8
+from rrt_tpu.scene.cornell import scene_path
 
 
 def test_sort_gate_pinned():
-    # the (octant, Morton) lane sort engages only for batches large
-    # enough to amortize the argsort AND scenes with clusters to skip
-    # (few-cluster scenes measured pure overhead, r3)
-    assert not tk._should_sort(1024, 1000)    # small batch
-    assert not tk._should_sort(65536, 16)     # few clusters
-    assert tk._should_sort(2048, 32)
-    assert tk._should_sort(65536, 894)        # CBbunny-class
+    assert not T.should_sort(1024, 1000)    # small batch
+    assert not T.should_sort(65536, 16)     # few clusters
+    assert T.should_sort(2048, 32)
+    assert T.should_sort(65536, 894)        # BVH-scale class
 
 
 def test_sort_gate_on_shipped_scene_classes():
     small, _ = build_scene(
-        collada.load(f"{DAE}/sky/CBspheres_lambertian.dae"), 64, 64)
-    big, _ = build_scene(collada.load(f"{DAE}/sky/CBbunny.dae"), 64, 64)
-    # config-2-class batches sort; tiny direct-light batches on the
-    # sphere scene never pay for it
-    assert tk._should_sort(512 * 512, int(big.cluster_lo.shape[0]))
-    assert not tk._should_sort(1500, int(small.cluster_lo.shape[0]))
+        collada.load(scene_path("cornell_lambertian")), 64, 64)
+    big, _ = build_scene(collada.load(scene_path("cornell_blob")), 64, 64)
+    # BVH-scale frames sort; small direct-light batches on the sphere
+    # scene never pay for it
+    assert T.should_sort(512 * 512, int(big.cluster_lo.shape[0]))
+    assert not T.should_sort(1500, int(small.cluster_lo.shape[0]))
 
 
-def test_lazy_march_gate_pinned(monkeypatch):
-    """RRT_LAZY=auto resolves to lazy on single-part scenes and eager on
-    multi-part (r5b on-chip sweep: primary render 2.37 s lazy vs 2.42 s
-    eager; CBbunny 8spp proxy 8.98 s eager vs 9.23 s lazy). Pinned so a
-    refactor can't silently flip the default for either scene class."""
-    import importlib
-
-    monkeypatch.delenv("RRT_LAZY", raising=False)
-    importlib.reload(tk)
-    try:
-        assert tk._LAZY == "auto"
-        small, _ = build_scene(
-            collada.load(f"{DAE}/sky/CBspheres_lambertian.dae"), 64, 64)
-        big, _ = build_scene(collada.load(f"{DAE}/sky/CBbunny.dae"), 64, 64)
-        # single-part (<= one blocked part) -> lazy; bunny spans parts
-        assert small.n_tris <= tk.PART_TRIS
-        assert big.n_tris > tk.PART_TRIS
-        # the raw dispatcher derives n_parts from the scalar-sweep
-        # PART_TRIS for the default v3 kernel
-        n_parts_small = max(1, -(-small.n_tris // tk.PART_TRIS))
-        n_parts_big = max(1, -(-big.n_tris // tk.PART_TRIS))
-        assert n_parts_small == 1 and n_parts_big > 1
-        monkeypatch.setenv("RRT_LAZY", "0")
-        importlib.reload(tk)
-        assert tk._LAZY == "0"
-    finally:
-        monkeypatch.delenv("RRT_LAZY", raising=False)
-        importlib.reload(tk)
+def test_lane_order_is_a_permutation():
+    big, _ = build_scene(collada.load(scene_path("cornell_blob")), 64, 64)
+    n = 4096
+    o = jnp.stack([jnp.linspace(-1, 1, n)] * 3, axis=-1)
+    d = jnp.stack([jnp.cos(jnp.arange(n)), jnp.sin(jnp.arange(n)),
+                   jnp.ones(n)], axis=-1)
+    perm = T.lane_order(big, o, d)
+    assert perm is not None
+    assert sorted(perm.tolist()) == list(range(n))
+    small, _ = build_scene(
+        collada.load(scene_path("cornell_lambertian")), 64, 64)
+    assert T.lane_order(small, o, d) is None

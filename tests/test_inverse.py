@@ -1,9 +1,9 @@
 """Closed-loop inverse rendering: parameter RECOVERY from a rendered
-target (VERDICT r2 item 4 — beyond gradient finiteness/FD checks, the
-optimizer must actually converge to the true values).
+target (beyond gradient finiteness/FD checks, the optimizer must
+actually converge to the true values).
 
 The reference has no differentiable path at all; this is the flagship
-"training" capability of the TPU build (BASELINE config 4).
+"training" capability of this build.
 """
 import numpy as np
 import jax
@@ -14,8 +14,9 @@ from rrt_tpu.scene.build import load_scene
 from rrt_tpu.render import diff
 from rrt_tpu.render.renderer import make_black_hole
 from rrt_tpu.utils.config import BlackHoleConfig, RenderConfig
+from rrt_tpu.scene.cornell import scene_path
 
-SCENE = "/root/reference/pathtracer/dae/sky/CBspheres_lambertian.dae"
+SCENE = scene_path("cornell_lambertian")
 
 
 def _rays(cam, w, h):

@@ -10,9 +10,9 @@ import pytest
 from rrt_tpu.render.renderer import Renderer
 from rrt_tpu.scene.build import load_scene
 from rrt_tpu.utils.config import BlackHoleConfig, Illum, RenderConfig
+from rrt_tpu.scene.cornell import scene_path
 
-DAE = "/root/reference/pathtracer/dae"
-SCENE = f"{DAE}/sky/CBspheres_lambertian.dae"
+SCENE = scene_path("cornell_lambertian")
 
 
 def _renderer(w=48, h=36, spp=4, **kw):
@@ -107,7 +107,7 @@ def test_progressive_preview(tmp_path):
 def test_single_program_per_render():
     """Tail-pass padding + dynamic origins: one compiled pass program
     serves steady passes, the smaller tail, AND a same-size cell render
-    (VERDICT r3 weak item 3 — no avoidable recompiles)."""
+    (no avoidable recompiles)."""
     r = _renderer(spp=5, max_pass_lanes=2 * 48 * 36)  # k=2 -> 2+2+1 tail
     r.render()
     assert r.samples_done == 5

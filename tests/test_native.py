@@ -69,3 +69,24 @@ def test_vertex_normals_match_numpy():
     finally:
         nat_mod._LIB = saved
     np.testing.assert_allclose(nat, ref, atol=1e-12)
+
+
+def test_concurrent_builds_leave_a_loadable_library():
+    """Parallel first uses each compile to a private temp file and rename
+    it into place: every builder succeeds, the result loads, and no
+    temporary file is left behind."""
+    import ctypes
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    procs = [subprocess.Popen([sys.executable, "-m", "rrt_tpu.utils.native"],
+                              env=env, cwd=root, stdout=subprocess.DEVNULL,
+                              stderr=subprocess.PIPE) for _ in range(4)]
+    for p in procs:
+        _, err = p.communicate(timeout=300)
+        assert p.returncode == 0, err.decode()[-1000:]
+    ctypes.CDLL(native._SO)
+    build_dir = os.path.dirname(native._SO)
+    assert [f for f in os.listdir(build_dir) if f.startswith(".")] == []

@@ -4,7 +4,7 @@ Referenced by tests/mp_worker.py. Two modes:
 
   default (CPU): for each (processes, local-devices) config, spawn that
     many REAL OS processes federated by jax.distributed over a localhost
-    coordinator (the code path a multi-host TPU pod takes over DCN), each
+    coordinator (the code path a multi-host deployment takes), each
     with `--devices` virtual CPU devices; every process renders its lane
     shard of a fixed WHOLE-frame forward pass (weak-per-device scaling is
     meaningless on a 2-core host, so the table reports aggregate
@@ -12,14 +12,14 @@ Referenced by tests/mp_worker.py. Two modes:
     this measures SPMD/federation OVERHEAD, not hardware speedup; the
     >=0.8 scaling target needs real chips).
 
-  --tpu: single-chip overhead check — the same jitted forward with and
-    without the NamedSharding constraint on a 1-device mesh (sharded and
-    unsharded must cost the same; a gap means the sharding layer itself
-    burns time).
+  --single: one-device overhead check on the default device — the same
+    jitted forward with and without the NamedSharding constraint on a
+    1-device mesh (sharded and unsharded must cost the same; a gap means
+    the sharding layer itself burns time).
 
 Usage:
   python tools/scaling_bench.py [--size 64] [--configs 1x1,1x2,1x4,2x2,1x8]
-  PYTHONPATH=. python tools/scaling_bench.py --tpu [--size 128]
+  PYTHONPATH=. python tools/scaling_bench.py --single [--size 128]
 """
 from __future__ import annotations
 
@@ -91,16 +91,17 @@ def main_cpu(args):
     print("|---|---|---|---|")
     for nproc, ndev, lanes, dt, thr in rows:
         print(f"| {nproc} | {nproc*ndev} | {thr:,.0f} | {thr/base:.2f}x |")
-    print("\n(2-core host: virtual devices share cores — this measures "
+    print("\n(virtual CPU devices share the host's cores: this measures "
           "SPMD+federation overhead, not hardware scaling)")
 
 
-def main_tpu(args):
+def main_single(args):
     import jax
     import jax.numpy as jnp
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
     from rrt_tpu.scene.build import load_scene
+    from rrt_tpu.scene.cornell import scene_path
     from rrt_tpu.render.integrator import est_radiance
     from rrt_tpu.render.renderer import make_black_hole
     from rrt_tpu.utils.config import RenderConfig
@@ -108,8 +109,7 @@ def main_tpu(args):
     W = H = args.size
     cfg = RenderConfig(width=W, height=H, ns_aa=1, ns_area_light=1,
                        max_ray_depth=2, seed=0)
-    scene, cam = load_scene(
-        "/root/reference/pathtracer/dae/sky/CBspheres_lambertian.dae", W, H)
+    scene, cam = load_scene(scene_path("cornell_lambertian"), W, H)
     bh = make_black_hole(cfg)
     ys, xs = np.meshgrid((np.arange(H) + 0.5) / H, (np.arange(W) + 0.5) / W,
                          indexing="ij")
@@ -141,7 +141,7 @@ def main_tpu(args):
 
 def main_breakdown_worker(args):
     """One device-count measurement, in-process (spawned by --breakdown):
-    attributes the sharded program's cost (VERDICT r3 weak item 4).
+    attributes the sharded program's cost.
 
     Prints one JSON line:
       sharded_ms     — lane-sharded forward over all local devices
@@ -154,9 +154,7 @@ def main_breakdown_worker(args):
                        ones (nonzero means tables re-ship per pass)
       collectives    — census of collective ops in the compiled sharded
                        HLO (all-reduce/all-gather/all-to-all/permute)
-      sort_ms        — curved forward with the trace lane sort ON vs OFF
-                       (the sort argsorts the GLOBAL lane axis, the one
-                       cross-device data movement in the render path)
+      curved_ms      — the curved forward, lane-sharded
     """
     import json
 
@@ -165,13 +163,13 @@ def main_breakdown_worker(args):
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
     from rrt_tpu.scene.build import load_scene
+    from rrt_tpu.scene.cornell import scene_path
     from rrt_tpu.render.integrator import est_radiance
     from rrt_tpu.render.renderer import make_black_hole
     from rrt_tpu.utils.config import BlackHoleConfig, RenderConfig
 
     W = H = args.size
-    scene, cam = load_scene(
-        "/root/reference/pathtracer/dae/sky/CBspheres_lambertian.dae", W, H)
+    scene, cam = load_scene(scene_path("cornell_lambertian"), W, H)
     ys, xs = np.meshgrid((np.arange(H) + 0.5) / H, (np.arange(W) + 0.5) / W,
                          indexing="ij")
     xy = np.stack([xs, ys], -1).reshape(-1, 2).astype(np.float32)
@@ -190,9 +188,7 @@ def main_breakdown_worker(args):
         jax.block_until_ready(out)
         return (time.time() - t0) / reps * 1e3
 
-    def measure(cfg, tag_sorted=True):
-        import os as _o
-        _o.environ["RRT_TRACE_SORT"] = "1" if tag_sorted else "0"
+    def measure(cfg):
         jax.clear_caches()
         bh = make_black_hole(cfg)
         rays = cam.generate_rays(jnp.asarray(xy))
@@ -224,16 +220,14 @@ def main_breakdown_worker(args):
                         black_hole=BlackHoleConfig(enabled=False))
     curved = flat.replace(black_hole=BlackHoleConfig(enabled=True))
     f_sh, f_d0, f_tx, f_coll = measure(flat)
-    c_sh, _, _, c_coll = measure(curved, tag_sorted=True)
-    c_ns, _, _, _ = measure(curved, tag_sorted=False)
+    c_sh, _, _, c_coll = measure(curved)
     print(json.dumps({
         "ndev": ndev,
         "flat_sharded_ms": round(f_sh, 2),
         "flat_device0_ms": round(f_d0, 2),
         "transfer_extra_ms": round(f_tx, 2),
         "flat_collectives": f_coll,
-        "curved_sorted_ms": round(c_sh, 2),
-        "curved_nosort_ms": round(c_ns, 2),
+        "curved_ms": round(c_sh, 2),
         "curved_collectives": c_coll,
     }))
 
@@ -254,12 +248,12 @@ def main_breakdown(args):
         rows.append(json.loads(line))
         print(line)
     print("\n| devs | flat sharded | flat dev0 | transfer Δ | "
-          "curved sorted | curved nosort | collectives (flat/curved) |")
-    print("|---|---|---|---|---|---|---|")
+          "curved | collectives (flat/curved) |")
+    print("|---|---|---|---|---|---|")
     for r in rows:
         print(f"| {r['ndev']} | {r['flat_sharded_ms']} ms "
               f"| {r['flat_device0_ms']} ms | {r['transfer_extra_ms']} ms "
-              f"| {r['curved_sorted_ms']} ms | {r['curved_nosort_ms']} ms "
+              f"| {r['curved_ms']} ms "
               f"| {sum(r['flat_collectives'].values())}"
               f"/{sum(r['curved_collectives'].values())} |")
 
@@ -268,7 +262,7 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser()
     ap.add_argument("--size", type=int, default=64)
     ap.add_argument("--configs", default="1x1,1x2,1x4,2x2,1x8")
-    ap.add_argument("--tpu", action="store_true")
+    ap.add_argument("--single", action="store_true")
     ap.add_argument("--breakdown", action="store_true")
     ap.add_argument("--breakdown-worker", action="store_true")
     args = ap.parse_args()
@@ -276,7 +270,7 @@ if __name__ == "__main__":
         main_breakdown_worker(args)
     elif args.breakdown:
         main_breakdown(args)
-    elif args.tpu:
-        main_tpu(args)
+    elif args.single:
+        main_single(args)
     else:
         main_cpu(args)
